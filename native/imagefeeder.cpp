@@ -1,11 +1,11 @@
-// Native data-loading runtime for the TPU ADMM deconvolution framework.
+// Native data-loading runtime for the ADMM deconvolution framework.
 //
 // The reference's data path runs on Images.jl's native codecs; here the
 // equivalent is a first-party C++ pipeline: libpng decode -> float32 HWC in
 // [0,1] -> aligned random crop of an (x, y) image pair -> batch assembly,
 // with one worker thread per pair (batch sizes are small; decode dominates).
 // Exposed as a C ABI consumed from Python via ctypes
-// (admm_deconv_tpu/data/native.py).  Crop offsets are drawn per-pair from a
+// (admm_deconv/data/native.py).  Crop offsets are drawn per-pair from a
 // splitmix64 PRNG seeded with (seed, index), so results are deterministic
 // and independent of thread scheduling.
 //

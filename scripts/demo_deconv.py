@@ -22,14 +22,14 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
-from admm_deconv_tpu.utils.compile_cache import enable_compile_cache
+from admm_deconv.utils.compile_cache import enable_compile_cache
 
 enable_compile_cache()
 
 import jax.numpy as jnp
 
-import admm_deconv_tpu as adt
-from admm_deconv_tpu.data import load_image, save_image
+import admm_deconv as adt
+from admm_deconv.data import load_image, save_image
 
 
 def synthetic_images(n=3, size=256, seed=0):
@@ -76,12 +76,8 @@ def main(argv=None):
     p.add_argument(
         "--fft-mode",
         default="auto",
-        help='x-update FFT backend; "auto" (default) picks the fastest mode '
-        'for the backend (fold1 delta-form DFT on TPU, xla on CPU)',
-    )
-    p.add_argument(
-        "--prox-impl", default="auto",
-        help='"auto" (default) = fused TPU stencil kernel on TPU, jnp on CPU',
+        help='x-update FFT backend; "auto" (default) takes the backend '
+        "policy's mode (ops/policy.py)",
     )
     p.add_argument(
         "--l1", type=float, default=0.0, metavar="LAM_L1",
@@ -96,17 +92,16 @@ def main(argv=None):
     p.add_argument(
         "--aa-interval", type=int, default=1, metavar="K",
         help="with --anderson: extrapolate every K iterations (one history "
-        "pass per K; round-4 every-k mixing)",
+        "pass per K)",
     )
     p.add_argument(
         "--auto", action="store_true",
-        help="let solve_auto pick the measured-fastest solver for the "
-        "request (adaptive rho + block checking + bf16 state on TPU)",
+        help="let solve_auto pick the policy's solver for the request "
+        "(adaptive rho + block checking)",
     )
     p.add_argument(
         "--bf16-state", dest="bf16_state", action="store_true",
-        help="store the loop carry in bf16 (fp32 math in VMEM; inference "
-        "fast path only, +20%% measured on TPU)",
+        help="store the loop carry in bf16 (fp32 stencil arithmetic)",
     )
     args = p.parse_args(argv)
     if sum([args.adaptive, args.anderson, args.l1 > 0, args.auto]) > 1:
@@ -162,7 +157,6 @@ def main(argv=None):
             batch, psf=jnp.asarray(psf), lam_tv=args.lam, lam_l1=args.l1,
             rho1=args.rho, rho2=args.rho, iters=args.iters, prox=prox,
             x_bounds=(0.0, 1.0), fft_mode=args.fft_mode,
-            prox_impl=args.prox_impl,
         )
         extra = f" (composite TV+L1, lam_l1={args.l1})"
     elif args.anderson:
@@ -172,14 +166,14 @@ def main(argv=None):
         restored, diag = adt.tv_deconvolve_anderson(
             batch, psf=jnp.asarray(psf), lam=args.lam, rho=args.rho,
             iters=it, prox=prox, aa_interval=args.aa_interval,
-            fft_mode=args.fft_mode, prox_impl=args.prox_impl,
+            fft_mode=args.fft_mode,
         )
         extra = f" (anderson: r_norm={float(jnp.max(diag.r_norm)):.5f})"
     else:
         restored = adt.tv_deconvolve(
             batch, psf=jnp.asarray(psf), lam=args.lam, rho=args.rho,
             iters=args.iters, prox=prox, fft_mode=args.fft_mode,
-            prox_impl=args.prox_impl, state_dtype=sdt,
+            state_dtype=sdt,
         )
         extra = ""
     restored = jnp.clip(restored, 0.0, 1.0)

@@ -21,8 +21,8 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from admm_deconv_tpu.data import generate_awgn_dataset
-from admm_deconv_tpu.data.dataset import generate_awgn_splits
+from admm_deconv.data import generate_awgn_dataset
+from admm_deconv.data.dataset import generate_awgn_splits
 
 
 def main(argv=None):

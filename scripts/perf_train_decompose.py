@@ -1,4 +1,4 @@
-"""Where the flagship train step's milliseconds go (run on TPU).
+"""Where the flagship train step's milliseconds go (run on a GPU).
 
 Times jitted value_and_grad+update steps for the full AdmmDenoiser and for
 each sub-assembly in isolation on the BASELINE train workload
@@ -18,11 +18,11 @@ import jax.numpy as jnp
 import optax
 import flax.linen as nn
 
-from admm_deconv_tpu.metrics import gmsd_loss
-from admm_deconv_tpu.models import AdmmDenoiser
-from admm_deconv_tpu.models.zoo import Autoencoder, DenoiserBank
-from admm_deconv_tpu.models.blocks import UpDownBlock, relu1
-from admm_deconv_tpu.utils.profiling import IterationTimer
+from admm_deconv.metrics import gmsd_loss
+from admm_deconv.models import AdmmDenoiser
+from admm_deconv.models.zoo import Autoencoder, DenoiserBank
+from admm_deconv.models.blocks import UpDownBlock, relu1
+from admm_deconv.utils.profiling import IterationTimer
 
 B, H, W = 2, 112, 112
 
@@ -83,8 +83,7 @@ def main():
     time_step("full AdmmDenoiser fwd-only", AdmmDenoiser(), fwd_only=True)
     time_step("autoencoder only", Autoencoder())
     time_step("denoiser bank only (xla)", DenoiserBank())
-    time_step("denoiser bank only (fold1+pallas)",
-              DenoiserBank(fft_mode="fold1", prox_impl="pallas"))
+    time_step("denoiser bank only (fold1)", DenoiserBank(fft_mode="fold1"))
     time_step("heads only", Heads(), x_ch=175)
     time_step("full, mse loss", AdmmDenoiser(), loss="mse")
 

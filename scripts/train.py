@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Training entry point — the reference's ``julia src/train.jl -c cfg -n name``
-(``src/train.jl:177-196``) as a CLI over the TPU trainer.
+(``src/train.jl:177-196``) as a CLI over the trainer.
 
 Usage::
 
@@ -15,13 +15,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
-from admm_deconv_tpu.utils.compile_cache import enable_compile_cache
+from admm_deconv.utils.compile_cache import enable_compile_cache
 
 enable_compile_cache()
-from admm_deconv_tpu.data import DataLoader, ImageDataFeeder
-from admm_deconv_tpu.models import build_model
-from admm_deconv_tpu.parallel import distributed
-from admm_deconv_tpu.train import Trainer, load_config, parse_args
+from admm_deconv.data import DataLoader, ImageDataFeeder
+from admm_deconv.models import build_model
+from admm_deconv.parallel import distributed
+from admm_deconv.train import Trainer, load_config, parse_args
 
 
 def get_dataloaders(cfg, rng):
@@ -68,7 +68,7 @@ def main(argv=None):
 
     log(f"Building model {cfg.model}")
     model = build_model(cfg.model, {"use_iso": cfg.use_iso, "fft_mode": cfg.fft_mode,
-                                    "prox_impl": cfg.prox_impl, "state_dtype": cfg.state_dtype})
+                                    "state_dtype": cfg.state_dtype})
     trainer = Trainer(model, cfg)
 
     sample_x, _ = next(iter(train_loader))

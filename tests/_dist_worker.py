@@ -26,7 +26,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from admm_deconv_tpu.parallel import distributed
+from admm_deconv.parallel import distributed
 
 distributed.initialize(
     coordinator_address=f"127.0.0.1:{port}",
@@ -39,9 +39,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
 
-from admm_deconv_tpu.data.feeder import DataLoader
-from admm_deconv_tpu.parallel.mesh import make_mesh
-from admm_deconv_tpu.train import Trainer, TrainConfig
+from admm_deconv.data.feeder import DataLoader
+from admm_deconv.parallel.mesh import make_mesh
+from admm_deconv.train import Trainer, TrainConfig
 
 assert distributed.is_multi_host()
 assert jax.process_count() == nprocs
@@ -89,16 +89,16 @@ assert all(b[0].shape[0] == 4 // nprocs for b in batches)
 
 
 class TinyModel(nn.Module):
-    """Smoke model whose gradient crosses the ADMM layer's fast q-carry
-    path INCLUDING the fused Pallas stencil's custom VJP
-    (``prox_impl="pallas"``) — so the 2-process test proves multi-process
-    gradients through the unrolled solver, not just a plain Conv."""
+    """Smoke model whose gradient crosses the ADMM layer's q-carry loop
+    (the jnp stencil, differentiated by autodiff) — so the 2-process test
+    proves multi-process gradients through the unrolled solver, not just a
+    plain Conv."""
 
     @nn.compact
     def __call__(self, v):
-        from admm_deconv_tpu.layers import ADMMDeconvF2
+        from admm_deconv.layers import ADMMDeconvF2
 
-        v = ADMMDeconvF2((), iters=4, rho=0.5, prox_impl="pallas")(v)
+        v = ADMMDeconvF2((), iters=4, rho=0.5)(v)
         return nn.Conv(3, (3, 3))(v)
 
 

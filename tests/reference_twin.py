@@ -52,6 +52,39 @@ def block(vx, vy, tau):
     return scale * vx, scale * vy
 
 
+def hard(v, tau):
+    return v * (np.abs(v) > tau)
+
+
+def gauss(vx, vy, tau):
+    scale = 0.5 - 0.5 * np.exp(-(vx**2 + vy**2) / (2.0 * tau**2))
+    return scale * vx, scale * vy
+
+
+def prox_pair(mode, vx, vy, tau):
+    """The four threshold operators of ``src/ops/ops.jl:8-11`` on a pair."""
+    if mode == "aniso":
+        return soft(vx, tau), soft(vy, tau)
+    if mode == "iso":
+        return block(vx, vy, tau)
+    if mode == "hard":
+        return hard(vx, tau), hard(vy, tau)
+    if mode == "gauss":
+        return gauss(vx, vy, tau)
+    raise ValueError(mode)
+
+
+def admm_stencil(x, ux, uy, tau, mode="aniso"):
+    """One plain-ADMM stencil section on one (H, W) plane:
+    ``v = D x + u``, ``z = prox(v)``, ``u' = v - z``, ``q = D^T (z - u')``.
+    Returns ``(q, u'x, u'y)``."""
+    dxx, dxy = grad2d(x)
+    vx, vy = dxx + ux, dxy + uy
+    zx, zy = prox_pair(mode, vx, vy, tau)
+    ux2, uy2 = vx - zx, vy - zy
+    return grad2d_adjoint(zx - ux2, zy - uy2), ux2, uy2
+
+
 def admm_tv_reference(y, psf=None, lam=0.1, rho=1.0, iters=50, isotropic=False):
     """Fixed-iteration ADMM exactly as the reference runs it (one image)."""
     m, n = y.shape

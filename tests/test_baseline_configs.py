@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from admm_deconv_tpu.data.dataset import add_poisson_gaussian
-from admm_deconv_tpu.layers import ADMMDeconv
-from admm_deconv_tpu.metrics import peak_snr
-from admm_deconv_tpu.ops.solver import tv_deconvolve, tv_deconvolve_adaptive
-from admm_deconv_tpu.parallel import make_mesh, shard_batch, tiled_tv_deconvolve
+from admm_deconv.data.dataset import add_poisson_gaussian
+from admm_deconv.layers import ADMMDeconv
+from admm_deconv.metrics import peak_snr
+from admm_deconv.ops.solver import tv_deconvolve, tv_deconvolve_adaptive
+from admm_deconv.parallel import make_mesh, shard_batch, tiled_tv_deconvolve
 
 from reference_twin import circ_conv_centered
 
@@ -73,7 +73,7 @@ class TestBaselineConfigs:
         """Batched frames sharded across chips, Poisson-Gaussian noise,
         solved with the config's stated L1+TV composite prior (round-3 fix:
         this used to run plain TV)."""
-        from admm_deconv_tpu.ops.composite import composite_tv_deconvolve
+        from admm_deconv.ops.composite import composite_tv_deconvolve
 
         mesh = make_mesh({"data": 8})
         clean = np.stack([_scene(rng, 64, 64, 3) for _ in range(8)])

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from admm_deconv_tpu.data import (
+from admm_deconv.data import (
     ImageDataFeeder,
     DataLoader,
     add_awgn,
@@ -126,7 +126,7 @@ class TestDualSplitBuilder:
     def test_generate_awgn_splits(self, tmp_path, rng):
         """One-command train+test build under awgn_<min>_<max>/{train,test}
         (reference ``add_gopro``, ``make_dataset.jl:54-96``)."""
-        from admm_deconv_tpu.data import generate_awgn_splits, save_image
+        from admm_deconv.data import generate_awgn_splits, save_image
 
         for split, n in (("train", 3), ("test", 2)):
             d = tmp_path / f"clean_{split}"
@@ -177,7 +177,7 @@ class TestPairListIngestion:
         return lst, pairs
 
     def test_list_file_pairs_and_crops(self, tmp_path, rng):
-        from admm_deconv_tpu.data.feeder import DataLoader, ImageDataFeeder
+        from admm_deconv.data.feeder import DataLoader, ImageDataFeeder
 
         lst, pairs = self._write_corpus(tmp_path, rng)
         feeder = ImageDataFeeder.from_pair_list(
@@ -195,7 +195,7 @@ class TestPairListIngestion:
         assert sum(b[0].shape[0] for b in batches) == 3
 
     def test_malformed_line_raises(self, tmp_path, rng):
-        from admm_deconv_tpu.data.feeder import ImageDataFeeder
+        from admm_deconv.data.feeder import ImageDataFeeder
 
         lst = tmp_path / "bad.txt"
         lst.write_text("only_one_token\n")
@@ -203,7 +203,7 @@ class TestPairListIngestion:
             ImageDataFeeder.from_pair_list(str(lst))
 
     def test_absolute_and_custom_root(self, tmp_path, rng):
-        from admm_deconv_tpu.data.feeder import ImageDataFeeder
+        from admm_deconv.data.feeder import ImageDataFeeder
 
         lst, pairs = self._write_corpus(tmp_path, rng, n=1)
         other = tmp_path / "elsewhere"

@@ -16,8 +16,8 @@ import jax
 import numpy as np
 import pytest
 
-from admm_deconv_tpu.data.feeder import DataLoader
-from admm_deconv_tpu.parallel import distributed
+from admm_deconv.data.feeder import DataLoader
+from admm_deconv.parallel import distributed
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from admm_deconv_tpu.ops.fft_factored import (
+from admm_deconv.ops.fft_factored import (
     best_factorization,
     fft2_c2c,
     pack_planes,
@@ -13,7 +13,7 @@ from admm_deconv_tpu.ops.fft_factored import (
     spectrum_to_layout,
     unpack_planes,
 )
-from admm_deconv_tpu.ops.solver import tv_deconvolve
+from admm_deconv.ops.solver import tv_deconvolve
 
 P = jax.lax.Precision
 

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from admm_deconv_tpu.ops.fft_mxu import (
+from admm_deconv.ops.fft_mxu import (
     fold_even_odd,
     fold_hermitian,
     irfft2_mxu,
@@ -14,7 +14,7 @@ from admm_deconv_tpu.ops.fft_mxu import (
     rfft2_mxu_folded,
     spectral_scale_folded,
 )
-from admm_deconv_tpu.ops.solver import tv_deconvolve, tv_deconvolve_adaptive
+from admm_deconv.ops.solver import tv_deconvolve, tv_deconvolve_adaptive
 
 
 class TestRfft2Mxu:
@@ -125,8 +125,8 @@ class TestSolverFftModes:
     def test_fold1_matches_xla(self, rng):
         """Delta-form bf16x1 mode: on CPU all precisions are fp32, so fold1
         must match xla to float noise — this validates the x_B hoisting /
-        rho-folded-multiplier restructuring itself (the bf16 accuracy claim
-        is measured on TPU: BASELINE.md round-2 precision ladder)."""
+        rho-folded-multiplier restructuring itself (on a GPU, DEFAULT
+        precision runs the loop matmuls in TF32)."""
         img = np.clip(rng.random((2, 32, 32, 3)), 0, 1).astype(np.float32)
         psf = np.zeros((5, 5), np.float32)
         psf[2, :] = 0.2

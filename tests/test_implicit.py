@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from admm_deconv_tpu.layers import ADMMDeconv
-from admm_deconv_tpu.ops.implicit import tv_deconvolve_implicit
-from admm_deconv_tpu.ops.solver import tv_deconvolve
+from admm_deconv.layers import ADMMDeconv
+from admm_deconv.ops.implicit import tv_deconvolve_implicit
+from admm_deconv.ops.solver import tv_deconvolve
 
 
 @pytest.fixture
@@ -130,7 +130,7 @@ class TestImplicitFold1:
         """Round-3 regression: the implicit backward's _step must build the
         fold1 DELTA-form precompute (x_B + folded rho*C) — the plain c_spec
         silently mis-solved before.  fp32 on CPU -> gradients must agree."""
-        from admm_deconv_tpu.ops.implicit import tv_deconvolve_implicit
+        from admm_deconv.ops.implicit import tv_deconvolve_implicit
 
         img = np.clip(
             rng.random((16, 16)).astype(np.float32) * 0.5 + 0.2, 0, 1

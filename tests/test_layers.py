@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from admm_deconv_tpu.layers import (
+from admm_deconv.layers import (
     ADMMDeconv,
     ADMMDeconvF1,
     ADMMDeconvF2,
     ADMMDeconvF3,
 )
-from admm_deconv_tpu.ops.solver import tv_deconvolve
+from admm_deconv.ops.solver import tv_deconvolve
 
 
 def _x(rng, b=2, h=16, w=16, c=3):
@@ -33,11 +33,11 @@ class TestForward:
         x = _x(rng)
         base = ADMMDeconv(
             kernel_shape=(), iters=10, lam_init=0.05, rho_init=0.5,
-            fft_mode="fold1", prox_impl="pallas",
+            fft_mode="fold1",
         )
         fast = ADMMDeconv(
             kernel_shape=(), iters=10, lam_init=0.05, rho_init=0.5,
-            fft_mode="fold1", prox_impl="pallas", state_dtype="bfloat16",
+            fft_mode="fold1", state_dtype="bfloat16",
         )
         params = base.init(jax.random.PRNGKey(0), x)
         out32 = base.apply(params, x)

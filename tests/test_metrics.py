@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from admm_deconv_tpu.metrics import (
+from admm_deconv.metrics import (
     peak_snr,
     ssim,
     ssim_loss,
@@ -12,7 +12,7 @@ from admm_deconv_tpu.metrics import (
     gmsd,
     gmsd_loss,
 )
-from admm_deconv_tpu.metrics.ssim import SSIM_KERNEL_1D
+from admm_deconv.metrics.ssim import SSIM_KERNEL_1D
 
 
 def _imgs(rng, b=2, h=32, w=32, c=3):
@@ -174,7 +174,7 @@ class TestGMSD:
     def test_imgrads_public_surface(self, rng):
         """imgrads/gradientsmag + Prewitt constants (``iqa_utils.jl:5-17,
         24-55``) are exposed and consistent."""
-        from admm_deconv_tpu.metrics import (
+        from admm_deconv.metrics import (
             PREWITT_X, PREWITT_Y, SOBEL_X, SOBEL_Y, gradientsmag, imgrads,
         )
 

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from admm_deconv_tpu.models import (
+from admm_deconv.models import (
     AdmmDenoiser,
     Autoencoder,
     DenoiserBank,
@@ -106,25 +106,24 @@ class TestZoo:
         gl = np.asarray(g["params"]["lam"])
         assert np.all(np.isfinite(gl)) and np.any(gl != 0)
 
-    def test_denoiser_bank_fused_pallas_matches_xla(self, rng):
-        """With the differentiable per-plane-tau kernel, the fused bank runs
-        the Pallas fast path — forward and lam-gradient must match the jnp
-        path (VERDICT round-1 missing #1)."""
+    def test_denoiser_bank_bf16_carry_matches_fp32(self, rng):
+        """The fused bank with a bf16 loop carry: forward and lam-gradient
+        land within the carry's rounding envelope of the fp32 carry."""
         x = _x(rng, h=16, w=16)
         m_x = DenoiserBank(iters=4, fused=True)
-        m_p = DenoiserBank(iters=4, fused=True, prox_impl="pallas")
+        m_p = DenoiserBank(iters=4, fused=True, state_dtype="bfloat16")
         params = {"params": {"lam": jnp.asarray([0.001, 0.01, 0.05, 0.1, 0.2])}}
         np.testing.assert_allclose(
             np.asarray(m_p.apply(params, x)),
             np.asarray(m_x.apply(params, x)),
-            atol=1e-5,
+            atol=2e-2,
         )
         gx = jax.grad(lambda p: jnp.sum(m_x.apply(p, x) ** 2))(params)
         gp = jax.grad(lambda p: jnp.sum(m_p.apply(p, x) ** 2))(params)
         np.testing.assert_allclose(
             np.asarray(gp["params"]["lam"]),
             np.asarray(gx["params"]["lam"]),
-            rtol=1e-3, atol=1e-5,
+            rtol=5e-2, atol=1e-2,
         )
 
     def test_autoencoder_output(self, rng):

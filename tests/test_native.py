@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from admm_deconv_tpu.data import ImageDataFeeder, save_image
-from admm_deconv_tpu.data import native
+from admm_deconv.data import ImageDataFeeder, save_image
+from admm_deconv.data import native
 
 
 pytestmark = pytest.mark.skipif(
@@ -66,7 +66,7 @@ class TestNativeLoader:
 
         ys = sorted(glob.glob(os.path.join(yd, "*.png")))
         by, by2 = native.load_pair_batch(ys, ys, 40, 48, seed=0)
-        from admm_deconv_tpu.data import load_image
+        from admm_deconv.data import load_image
 
         for i, path in enumerate(ys):
             pil = load_image(path)

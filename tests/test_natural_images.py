@@ -20,7 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import admm_deconv_tpu as adt
+import admm_deconv as adt
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 NAMES = ("china", "flower", "hopper")

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from admm_deconv_tpu.ops.fft import psf_to_otf, laplacian_spectrum
-from admm_deconv_tpu.ops.diff import grad2d, grad2d_adjoint
-from admm_deconv_tpu.ops import prox
+from admm_deconv.ops.fft import psf_to_otf, laplacian_spectrum
+from admm_deconv.ops.diff import grad2d, grad2d_adjoint
+from admm_deconv.ops import prox
 
 from reference_twin import circ_conv_centered, circ_corr_centered
 
@@ -151,7 +151,7 @@ class TestExactPrecomputeFFT:
     CPU) and the folded delta-hoist must match the native FFT."""
 
     def test_exact_helpers_match_native_on_cpu(self, rng):
-        from admm_deconv_tpu.ops.fft import irfft2_exact, rfft2_exact
+        from admm_deconv.ops.fft import irfft2_exact, rfft2_exact
 
         x = jnp.asarray(rng.random((2, 16, 24)), jnp.float32)
         np.testing.assert_allclose(
@@ -166,7 +166,7 @@ class TestExactPrecomputeFFT:
         )
 
     def test_delta_hoist_matches_native(self, rng):
-        from admm_deconv_tpu.ops.solver import _delta_hoist_irfft2
+        from admm_deconv.ops.solver import _delta_hoist_irfft2
 
         x = jnp.asarray(rng.random((3, 16, 24)), jnp.float32)
         spec = jnp.fft.rfft2(x) * (1.0 + 0.5j)
@@ -180,7 +180,7 @@ class TestExactPrecomputeFFT:
         """irfft2_mxu_folded(fold_hermitian(S)) == irfft2(S) — the identity
         the accelerator branch of _delta_hoist_irfft2 relies on (validated
         here on CPU with the MXU kernels at HIGHEST)."""
-        from admm_deconv_tpu.ops.fft_mxu import fold_hermitian, irfft2_mxu_folded
+        from admm_deconv.ops.fft_mxu import fold_hermitian, irfft2_mxu_folded
 
         x = jnp.asarray(rng.random((2, 16, 24)), jnp.float32)
         spec = jnp.fft.rfft2(x) * (0.3 - 1.2j)

@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from admm_deconv_tpu.layers import ADMMDeconvF2
-from admm_deconv_tpu.optim import ReduceLROnPlateau
-from admm_deconv_tpu.train import TrainConfig, Trainer, load_config, parse_args
+from admm_deconv.layers import ADMMDeconvF2
+from admm_deconv.optim import ReduceLROnPlateau
+from admm_deconv.train import TrainConfig, Trainer, load_config, parse_args
 
 
 class TestConfig:
@@ -254,14 +254,14 @@ class TestPrefetcher:
     """Round-5 input-pipeline overlap: the background prefetch wrapper."""
 
     def test_order_and_transform(self):
-        from admm_deconv_tpu.train.prefetch import Prefetcher
+        from admm_deconv.train.prefetch import Prefetcher
 
         items = [(i, -i) for i in range(20)]
         got = list(Prefetcher(items, transform=lambda a, b: (a * 2, b)))
         assert got == [(i * 2, -i) for i in range(20)]
 
     def test_exception_propagates(self):
-        from admm_deconv_tpu.train.prefetch import Prefetcher
+        from admm_deconv.train.prefetch import Prefetcher
 
         def bad():
             yield (1, 1)
@@ -273,13 +273,13 @@ class TestPrefetcher:
             next(it)
 
     def test_early_break_does_not_hang(self):
-        from admm_deconv_tpu.train.prefetch import Prefetcher
+        from admm_deconv.train.prefetch import Prefetcher
 
         for first in Prefetcher(((i, i) for i in range(1000)), depth=2):
             break  # worker must unblock and exit
 
     def test_depth_validation(self):
-        from admm_deconv_tpu.train.prefetch import Prefetcher
+        from admm_deconv.train.prefetch import Prefetcher
 
         with pytest.raises(ValueError, match="depth"):
             Prefetcher([], depth=0)
@@ -294,7 +294,7 @@ class TestOnDeviceMetrics:
     def test_fit_metrics_match_manual_average(self, tmp_path, rng, prefetch):
         import csv as _csv
 
-        from admm_deconv_tpu.train import TrainConfig, Trainer
+        from admm_deconv.train import TrainConfig, Trainer
 
         cfg = TrainConfig(
             batch_size=2, im_shape=(16, 16), epochs=1, lr_rate=1e-2,
@@ -338,11 +338,10 @@ class TestResumeRetrace:
     train step.  Two historical causes, both pinned here: weak-typed
     counters (fresh ``jnp.asarray(0)`` vs strong restored ints) and
     COMMITTED restored arrays vs uncommitted fresh/jit-output leaves —
-    each flip is a full step recompile (~300 s remote on the TPU
-    backend)."""
+    each flip is a full step recompile."""
 
     def test_single_signature_across_resume(self, tmp_path, rng):
-        from admm_deconv_tpu.train import TrainConfig, Trainer
+        from admm_deconv.train import TrainConfig, Trainer
 
         cfg = TrainConfig(
             batch_size=2, im_shape=(16, 16), epochs=2, lr_rate=1e-2,
@@ -369,7 +368,7 @@ class TestResumeRetrace:
         assert t2._eval_step._cache_size() == 1
 
     def test_restored_counters_match_fresh_avals(self, tmp_path, rng):
-        from admm_deconv_tpu.train import TrainConfig, Trainer
+        from admm_deconv.train import TrainConfig, Trainer
 
         cfg = TrainConfig(
             batch_size=2, im_shape=(16, 16), epochs=1, lr_rate=1e-2,

@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from admm_deconv_tpu.utils import (
+from admm_deconv.utils import (
     expand_dims,
     fftn_matlike,
     forward_diff3d,
@@ -77,8 +77,8 @@ class TestDebug:
 class TestSolverStateIO:
     def test_save_load_roundtrip(self, tmp_path, rng):
         import jax.numpy as jnp
-        from admm_deconv_tpu.ops.solver import tv_deconvolve
-        from admm_deconv_tpu.utils import save_solver_state, load_solver_state
+        from admm_deconv.ops.solver import tv_deconvolve
+        from admm_deconv.utils import save_solver_state, load_solver_state
 
         y = jnp.asarray(rng.random((16, 16)), jnp.float32)
         x10, state = tv_deconvolve(
@@ -97,15 +97,16 @@ class TestSolverStateIO:
 
 
 class TestCompileCache:
-    """Round 5: persistent-compile-cache helper (fold1 first-compile
-    mitigation)."""
+    """Persistent-compile-cache helper: JAX_COMPILATION_CACHE_DIR when set,
+    otherwise a fixed directory inside the checkout."""
 
     def test_enable_sets_config_and_creates_dir(self, tmp_path, monkeypatch):
         import jax
 
-        from admm_deconv_tpu.utils.compile_cache import enable_compile_cache
+        from admm_deconv.utils.compile_cache import enable_compile_cache
 
-        monkeypatch.delenv("ADMM_TPU_NO_COMPILE_CACHE", raising=False)
+        monkeypatch.delenv("ADMM_NO_COMPILE_CACHE", raising=False)
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         d = str(tmp_path / "xla_cache")
         prev = jax.config.jax_compilation_cache_dir
         try:
@@ -115,9 +116,94 @@ class TestCompileCache:
         finally:
             jax.config.update("jax_compilation_cache_dir", prev)
 
-    def test_opt_out_env(self, tmp_path, monkeypatch):
-        from admm_deconv_tpu.utils.compile_cache import enable_compile_cache
+    def test_default_dir_is_in_the_checkout(self, monkeypatch):
+        import jax
 
-        monkeypatch.setenv("ADMM_TPU_NO_COMPILE_CACHE", "1")
+        from admm_deconv.utils import compile_cache
+
+        monkeypatch.delenv("ADMM_NO_COMPILE_CACHE", raising=False)
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert compile_cache.DEFAULT_DIR == os.path.join(root, ".jax_cache")
+        prev = jax.config.jax_compilation_cache_dir
+        try:
+            assert compile_cache.enable_compile_cache() == compile_cache.DEFAULT_DIR
+            assert jax.config.jax_compilation_cache_dir == compile_cache.DEFAULT_DIR
+        finally:
+            jax.config.update("jax_compilation_cache_dir", prev)
+
+    def test_env_dir_wins_and_is_not_overridden(self, tmp_path, monkeypatch):
+        import jax
+
+        from admm_deconv.utils.compile_cache import enable_compile_cache
+
+        monkeypatch.delenv("ADMM_NO_COMPILE_CACHE", raising=False)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+        prev = jax.config.jax_compilation_cache_dir
+        assert enable_compile_cache(str(tmp_path / "arg")) == str(tmp_path / "env")
+        assert jax.config.jax_compilation_cache_dir == prev
+        assert not os.path.isdir(str(tmp_path / "arg"))
+
+    def test_opt_out_env(self, tmp_path, monkeypatch):
+        from admm_deconv.utils.compile_cache import enable_compile_cache
+
+        monkeypatch.setenv("ADMM_NO_COMPILE_CACHE", "1")
         assert enable_compile_cache(str(tmp_path / "x")) is None
         assert not os.path.isdir(str(tmp_path / "x"))
+
+
+class TestTraceReduction:
+    """The trace -> device-time-per-phase reduction, on a recorded CPU
+    trace of a small solve."""
+
+    def test_scopes_found_in_a_recorded_trace(self, tmp_path):
+        import jax
+
+        from admm_deconv.ops.solver import tv_deconvolve
+        from admm_deconv.utils.profiling import (
+            device_time_by_scope,
+            hlo_op_names,
+            latest_xplane,
+        )
+
+        y = jnp.asarray(np.random.default_rng(0).random((1, 32, 48, 3)), jnp.float32)
+        fn = jax.jit(
+            lambda v: tv_deconvolve(v, None, lam=0.01, rho=0.1, iters=4)
+        ).lower(y).compile()
+        names = hlo_op_names(fn.as_text())
+        assert any("admm/stencil" in v for v in names.values())
+        jax.block_until_ready(fn(y))
+        with jax.profiler.trace(str(tmp_path)):
+            jax.block_until_ready(fn(y + 1))
+        red = device_time_by_scope(latest_xplane(str(tmp_path)), names, "/host:CPU")
+        assert red["scopes"].get("stencil", 0) > 0
+        assert red["scopes"].get("x_update", 0) > 0
+        assert 0 < red["busy_ns"] <= red["window_ns"]
+
+    @pytest.mark.parametrize(
+        "op_name,scope",
+        [
+            ("jit(f)/admm/loop/while/body/closed_call/admm/stencil/add", "stencil"),
+            ("jit(f)/admm/precompute/jit(fft)/fft", "precompute"),
+            ("jit(f)/transpose", "other"),
+        ],
+    )
+    def test_scope_of(self, op_name, scope):
+        from admm_deconv.utils.profiling import scope_of
+
+        assert scope_of(op_name) == scope
+
+    def test_hlo_op_names_parses_instructions(self):
+        from admm_deconv.utils.profiling import hlo_op_names
+
+        text = (
+            '  %fusion.3 = f32[4]{0} fusion(f32[4]{0} %p), kind=kLoop, '
+            'calls=%c, metadata={op_name="jit(f)/admm/stencil/add"}\n'
+            '  ROOT %fft.1 = c64[4]{0} fft(%x), fft_type=RFFT, '
+            'metadata={op_name="jit(f)/admm/x_update/fft"}\n'
+            '  %p = f32[4]{0} parameter(0)\n'
+        )
+        assert hlo_op_names(text) == {
+            "fusion.3": "jit(f)/admm/stencil/add",
+            "fft.1": "jit(f)/admm/x_update/fft",
+        }
